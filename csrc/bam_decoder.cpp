@@ -1,7 +1,7 @@
 // Host-side streaming BAM decoder: multithreaded BGZF inflate + columnar
 // record extraction.
 //
-// TPU-era replacement for the reference's noodles-bam/noodles-bgzf ingest
+// Replacement for the reference's noodles-bam/noodles-bgzf ingest
 // path (reference: src/alignment_parser.rs:301-437 record streaming;
 // noodles multithreaded bgzf, main.rs:408-414). Responsibilities here are
 // deliberately narrow: inflate, decode the fields the quantifier needs
@@ -30,8 +30,45 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
-#include <libdeflate.h>
 #include <zlib.h>
+
+#if __has_include(<libdeflate.h>)
+#include <libdeflate.h>
+#else
+// zlib-only build: the subset of libdeflate's API this file uses, as a
+// raw-deflate zlib stream (slower, same results)
+struct libdeflate_decompressor {
+  z_stream zs;
+};
+enum { LIBDEFLATE_SUCCESS = 0, LIBDEFLATE_BAD_DATA = 1 };
+static libdeflate_decompressor* libdeflate_alloc_decompressor() {
+  auto* d = new libdeflate_decompressor();
+  memset(&d->zs, 0, sizeof(d->zs));
+  if (inflateInit2(&d->zs, -15) != Z_OK) {
+    delete d;
+    return nullptr;
+  }
+  return d;
+}
+static void libdeflate_free_decompressor(libdeflate_decompressor* d) {
+  if (d == nullptr) return;
+  inflateEnd(&d->zs);
+  delete d;
+}
+static int libdeflate_deflate_decompress(libdeflate_decompressor* d,
+                                         const void* in, size_t in_len,
+                                         void* out, size_t out_avail,
+                                         size_t* actual) {
+  if (d == nullptr || inflateReset(&d->zs) != Z_OK) return LIBDEFLATE_BAD_DATA;
+  d->zs.next_in = (Bytef*)in;
+  d->zs.avail_in = (uInt)in_len;
+  d->zs.next_out = (Bytef*)out;
+  d->zs.avail_out = (uInt)out_avail;
+  int rc = inflate(&d->zs, Z_FINISH);
+  *actual = out_avail - d->zs.avail_out;
+  return rc == Z_STREAM_END ? LIBDEFLATE_SUCCESS : LIBDEFLATE_BAD_DATA;
+}
+#endif
 
 namespace {
 

@@ -1,7 +1,7 @@
 // Native coverage-model pass: logistic per-bin probabilities +
 // per-read coverage-probability normalization.
 //
-// TPU-era equivalent of the reference's rayon-parallel coverage model
+// Equivalent of the reference's rayon-parallel coverage model
 // (`src/util/logistic_probability.rs:40-79`,
 // `src/util/normalize_probability.rs:5-74`), fused into two
 // multithreaded passes over the flat bin CSR. The NumPy implementation

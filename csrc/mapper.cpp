@@ -1,6 +1,6 @@
 // Long-read minimizer seed-chain mapper (raw-read mode backend).
 //
-// TPU-era replacement for the reference's external `rammap` crate
+// Replacement for the reference's external `rammap` crate
 // (reference: src/util/mapper.rs wraps rammap; presets selected per
 // sequencing tech at src/util/aligner.rs:34-41). From-scratch design:
 //
@@ -77,7 +77,7 @@ struct Minimizer {
   uint8_t strand; // 0 = forward canonical, 1 = reverse canonical
 };
 
-// Per-worker-thread scratch cap: the TPU-era analogue of the
+// Per-worker-thread scratch cap: the analogue of the
 // reference's RAMMAP_DP_CACHE_CAP_MB / --dp-cache-cap-mb knob
 // (Cargo.toml:84-87, prog_opts.rs:434-439, main.rs:347-349), which
 // bounds mapper scratch memory that persists across reads on each

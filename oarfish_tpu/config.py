@@ -1,6 +1,6 @@
 """Run configuration: flags, filter groups, and filter resolution.
 
-This is the TPU-native equivalent of the reference's options layer
+This is the equivalent of the reference's options layer
 (`src/prog_opts.rs` and the filter-group overlay logic in
 `src/main.rs:70-178`). The same defaults and override semantics are kept:
 each filter flag remembers whether the user provided it explicitly, and a
@@ -253,7 +253,7 @@ class Args:
     sort_check_num: int = 100_000
     use_kde: bool = False
 
-    # TPU-native extensions (no reference equivalent): compute precision of
+    # Extensions (no reference equivalent): compute precision of
     # the device EM, EM kernel implementation, data-parallel shard count.
     em_dtype: str = "float64"
     em_impl: str = "auto"  # auto | segsum | fast

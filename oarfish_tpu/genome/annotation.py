@@ -1,6 +1,6 @@
 """GTF/GFF transcript-model loading.
 
-TPU-era equivalent of `bramble_rs::annotation::load_transcripts` (used at
+Equivalent of `bramble_rs::annotation::load_transcripts` (used at
 reference `projection.rs:45-55`, `main.rs:252`): parse exon features from a
 GTF or GFF3 annotation into per-transcript exon chains, in annotation
 order (transcript ids are dense indices in first-appearance order — the

@@ -1,7 +1,7 @@
 """Genome→transcriptome index: exon chains + a binned genomic interval
 index for candidate-transcript lookup.
 
-TPU-era equivalent of bramble's `G2TTree` (`projection.rs:45-74`): each
+Equivalent of bramble's `G2TTree` (`projection.rs:45-74`): each
 transcript gets a dense 0-based id in annotation order; lookups map a
 genomic span on a chromosome to the transcripts whose exonic extent
 overlaps it. The transcriptome header/`TranscriptInfo` are built in this

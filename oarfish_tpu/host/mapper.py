@@ -1,7 +1,7 @@
 """ctypes bindings for the C++ minimizer mapper (csrc/mapper.cpp) plus
 index persistence with the OARFISHSIG digest footer.
 
-TPU-era equivalent of the reference's rammap wrapper
+Equivalent of the reference's rammap wrapper
 (`src/util/mapper.rs`) and aligner/index construction
 (`src/util/aligner.rs`): presets per sequencing tech
 (`aligner.rs:34-41`), FASTA build, `--index-out` persist with the digest

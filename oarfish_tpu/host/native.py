@@ -60,19 +60,29 @@ class _Decoded(ctypes.Structure):
 
 
 def _build_library() -> bool:
+    """Build with libdeflate where it is installed; otherwise the source
+    falls back to zlib's inflate (`__has_include`) and links without it."""
     src = _CSRC / "bam_decoder.cpp"
     if not src.exists():
         return False
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        str(src), "-o", str(_LIB_PATH), "-ldeflate", "-lz", "-pthread",
+        str(src), "-o", str(_LIB_PATH), "-lz", "-pthread",
     ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    err = None
+    for extra in (["-ldeflate"], []):
+        try:
+            subprocess.run(cmd + extra, check=True, capture_output=True,
+                           timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            err = e
+            continue
+        if not extra:
+            log.warning("libdeflate unavailable: built the zlib-only "
+                        "native decoder")
         return True
-    except Exception as e:  # noqa: BLE001
-        log.warning("could not build native host decoder: %s", e)
-        return False
+    log.warning("could not build native host decoder: %s", err)
+    return False
 
 
 def _lib_stale() -> bool:

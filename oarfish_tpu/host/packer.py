@@ -1,6 +1,6 @@
 """Streaming BAM → CSR packing: group records by read name, filter, pack.
 
-TPU-era equivalent of `parse_alignments` (`alignment_parser.rs:301-437`):
+Equivalent of `parse_alignments` (`alignment_parser.rs:301-437`):
 records are streamed from the (parallel-inflated) BAM, grouped by contiguous
 read name, run through the alignment filters, and appended to the CSR store.
 The first `sort_check_num` read names are hashed to verify the input is

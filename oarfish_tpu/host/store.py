@@ -1,6 +1,6 @@
 """The CSR alignment store and per-transcript coverage state.
 
-TPU-era equivalent of `InMemoryAlignmentStore` + `TranscriptInfo`
+Equivalent of `InMemoryAlignmentStore` + `TranscriptInfo`
 (`oarfish_types.rs:547-759`, `:430-545`): for every retained read a
 contiguous slice of alignments with parallel probability arrays, delimited
 by a `boundaries` offsets vector. Here the store is a set of flat numpy

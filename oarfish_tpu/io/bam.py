@@ -1,7 +1,7 @@
 """Minimal BAM model: header parsing, record decode, record iteration, and a
 fixture writer.
 
-TPU-era replacement for the reference's `noodles-bam`/`noodles-sam` record
+Replacement for the reference's `noodles-bam`/`noodles-sam` record
 model (`Cargo.toml:36-37`). Only the fields the quantifier consumes are
 decoded: read name, flags, reference id, 1-based start/end (from the CIGAR
 reference span), sequence length, the `AS` alignment-score tag, and the

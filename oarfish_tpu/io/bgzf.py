@@ -1,6 +1,6 @@
 """BGZF (blocked gzip) reading and writing.
 
-The TPU-era replacement for the reference's `noodles-bgzf` multithreaded
+The replacement for the reference's `noodles-bgzf` multithreaded
 decoder (`Cargo.toml:62`, `main.rs:196-199,408-414`): BAM files are a series
 of independent gzip members, each at most 64 KiB of payload, whose compressed
 size is recorded in a `BC` extra subfield. Independent blocks mean inflation

@@ -1,6 +1,6 @@
 """Device EM: the sparse E/M fixed-point iteration as pure JAX.
 
-The TPU-native redesign of `src/em.rs`. The per-read CSR is flattened into
+The JAX redesign of `src/em.rs`. The per-read CSR is flattened into
 segment operations — no data-dependent Python control flow, everything under
 one `lax.while_loop` so XLA compiles the whole EM to a single device
 program:

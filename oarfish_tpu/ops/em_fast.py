@@ -1,12 +1,10 @@
-"""Scatter-free sparse EM formulation tuned to TPU lowering realities.
+"""Scatter-free sparse EM formulation.
 
-Profiling on the real chip (scripts/op_microbench2.py) shows XLA's TPU
-lowering of the naive formulation is ~500x off speed-of-light:
-scatter-add `segment_sum` runs at ~7 ns/element and gathers from tables
-larger than ~1 MB are equally slow, while elementwise ops, cumsums,
-row-reductions, and *sorted* gathers from small tables run near memory
-bandwidth. This module reformulates the E/M step to use only the fast
-ops:
+This module reformulates the E/M step without scatter-adds: segment
+sums become row reductions and cumsum differences, and the only
+irregular accesses are two gathers. It was written for a backend whose
+scatters were slow; whether it beats the plain segment-sum m-step
+(`ops/em.py`) on a given device is a measurement, not an assumption.
 
 * **Denominators** — reads are bucketed by alignment count into dense
   `[rows, K]` tables (power-of-two K, zero-padded). The per-read denom is
@@ -20,8 +18,7 @@ ops:
   f32 cumsum of millions of elements loses whole reads' worth of mass).
 * The only remaining irregular accesses are one gather from the `prev`
   counts table (T-sized) and one gather of per-read scales at CSC
-  positions (R-sized) — both delegated to Pallas VMEM-gather kernels
-  when available (see `ops/gather_pallas.py`), with jnp fallback.
+  positions (R-sized).
 
 Semantics are identical to `ops/em.py` (`em.rs:144-255` serial path);
 parity is enforced by tests against the NumPy oracle.
@@ -81,19 +78,12 @@ def exclusive_tile_prefix(tile_sums: jax.Array) -> Tuple[jax.Array, jax.Array]:
         "w_csc",
         "read_csc",
         "txp_offsets",
-        "g_p0",
-        "g_p1",
-        "g_lane",
-        "g_hi",
     ],
     meta_fields=[
         "bucket_rows",
         "num_reads",
         "num_txps",
         "num_tiles",
-        "g_rows",
-        "g_table_rows",
-        "use_pallas_gather",
     ],
 )
 @dataclass(frozen=True)
@@ -106,18 +96,10 @@ class FastEmData:
     w_csc: jax.Array  # [A_pad]
     read_csc: jax.Array  # [A_pad] i32 relabeled read ids (R = pad)
     txp_offsets: jax.Array  # [T+1] i64 offsets into the CSC array
-    # optional Pallas sorted-gather plan arrays (ops/gather_pallas.py)
-    g_p0: Optional[jax.Array]
-    g_p1: Optional[jax.Array]
-    g_lane: Optional[jax.Array]
-    g_hi: Optional[jax.Array]
     bucket_rows: Tuple[int, ...]
     num_reads: int
     num_txps: int
     num_tiles: int
-    g_rows: int
-    g_table_rows: int
-    use_pallas_gather: bool
 
     @staticmethod
     def build(
@@ -126,7 +108,6 @@ class FastEmData:
         boundaries: np.ndarray,
         num_txps: int,
         dtype=jnp.float32,
-        use_pallas_gather: bool = False,
     ) -> Tuple["FastEmData", np.ndarray]:
         """Returns (data, read_order) where `read_order[i]` is the original
         read index of relabeled read i (multiplicity vectors must be
@@ -196,46 +177,13 @@ class FastEmData:
         offsets = np.zeros(T + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
 
-        g_p0 = g_p1 = g_lane = g_hi = None
-        g_rows = g_table_rows = 0
-        if use_pallas_gather and A:
-            from .gather_pallas import SortedGatherPlan
-
-            plan = SortedGatherPlan.build(txp_sorted, T + 1)
-            L = plan.out_len
-            if L > 4 * A + TILE:
-                # ultra-sparse index sets blow up the row-split padding;
-                # the jnp gather path is cheaper there
-                plan = None
-                use_pallas_gather = False
-        else:
-            plan = None
-        if plan is not None:
-            mask = plan.src_pos >= 0
-            w_csc = np.zeros(L, dtype=np.float64)
-            read_csc = np.full(L, R, dtype=np.int32)
-            w_csc[mask] = w_sorted[plan.src_pos[mask]]
-            read_csc[mask] = read_sorted[plan.src_pos[mask]]
-            txp_csc = np.full(L, T, dtype=np.int32)  # unused on device
-            # transcript offsets in plan (padded) coordinates
-            inv = np.zeros(A + 1, dtype=np.int64)
-            inv[plan.src_pos[mask]] = np.nonzero(mask)[0]
-            inv[A] = L
-            offsets = inv[offsets]
-            from .gather_pallas import base_lanes
-
-            g_p0 = base_lanes(plan.base)  # g_p1 unused (in-kernel one-hot)
-            g_lane, g_hi = plan.lane, plan.use_hi
-            g_rows, g_table_rows = plan.n_rows, plan.table_rows
-            A_pad = L
-        else:
-            A_pad = ((A + TILE - 1) // TILE) * TILE if A else TILE
-            txp_csc = np.full(A_pad, T, dtype=np.int32)
-            w_csc = np.zeros(A_pad, dtype=np.float64)
-            read_csc = np.full(A_pad, R, dtype=np.int32)
-            txp_csc[:A] = txp_sorted
-            w_csc[:A] = w_sorted
-            read_csc[:A] = read_sorted
+        A_pad = ((A + TILE - 1) // TILE) * TILE if A else TILE
+        txp_csc = np.full(A_pad, T, dtype=np.int32)
+        w_csc = np.zeros(A_pad, dtype=np.float64)
+        read_csc = np.full(A_pad, R, dtype=np.int32)
+        txp_csc[:A] = txp_sorted
+        w_csc[:A] = w_sorted
+        read_csc[:A] = read_sorted
 
         data = FastEmData(
             bucket_txp=tuple(bucket_txp),
@@ -244,17 +192,10 @@ class FastEmData:
             w_csc=jnp.asarray(w_csc, dtype=dtype),
             read_csc=jnp.asarray(read_csc),
             txp_offsets=jnp.asarray(offsets),
-            g_p0=g_p0,
-            g_p1=g_p1,
-            g_lane=g_lane,
-            g_hi=g_hi,
             bucket_rows=tuple(bucket_rows),
             num_reads=R,
             num_txps=T,
             num_tiles=A_pad // TILE,
-            g_rows=g_rows,
-            g_table_rows=g_table_rows,
-            use_pallas_gather=bool(use_pallas_gather and A),
         )
         return data, read_order
 
@@ -277,22 +218,7 @@ def _m_step_fast(
     scale_ext = jnp.concatenate([scale, jnp.zeros(1, prev.dtype)])
 
     # m-step: inc in CSC order, segmented sum via hierarchical cumsum-diff
-    if data.use_pallas_gather:
-        # sorted gather of prev at MXU/shuffle speed (ops/gather_pallas.py)
-        from .gather_pallas import LANES, _run
-
-        S = data.g_table_rows
-        pad = S * LANES - prev_ext.shape[0]
-        table2d = jnp.concatenate(
-            [prev_ext, jnp.zeros(pad, prev_ext.dtype)]
-        ).reshape(S, LANES)
-        gathered = _run(
-            table2d, data.g_p0, data.g_lane, data.g_hi,
-            data.g_rows, S,
-        ).reshape(-1)
-        contrib_csc = gathered * data.w_csc
-    else:
-        contrib_csc = jnp.take(prev_ext, data.txp_csc) * data.w_csc
+    contrib_csc = jnp.take(prev_ext, data.txp_csc) * data.w_csc
     inc = contrib_csc * jnp.take(scale_ext, data.read_csc)
     x2 = inc.reshape(data.num_tiles, TILE)
     local = jnp.cumsum(x2, axis=1)

@@ -1,21 +1,20 @@
-"""Static-permutation routing plans for TPU tiles.
+"""Static-permutation routing plans for `[R, 128]` tiles.
 
-The TPU exposes no general gather/scatter, but any FIXED permutation of a
-`[R, 128]` tile decomposes (Slepian–Duguid three-stage network) into
+Any FIXED permutation of a `[R, 128]` tile decomposes (Slepian–Duguid three-stage network) into
 
     R1: an independent lane-permutation within each row,
     C:  an independent row-permutation within each column,
     R2: another per-row lane-permutation,
 
-where R1/R2 are the hardware 128-lane shuffle (`take_along_axis` axis 1)
-and C is realized by transposing 128x128 blocks and shuffling again.
+where R1/R2 are 128-lane shuffles (`take_along_axis` axis 1) and C is
+realized by transposing 128x128 blocks and shuffling again.
 The decomposition reduces to edge-coloring a C-regular bipartite
 multigraph (source row -> dest row, one edge per element) with C = 128
 colors, done by recursive Euler splitting (C is a power of two, so every
 split is even).
 
 Everything here is host-side numpy producing static index arrays; the
-device kernels that consume them live in `transpose_pallas.py`.
+device code that consumes them lives in `static_permute.py`.
 """
 
 from __future__ import annotations
@@ -376,7 +375,7 @@ class TilePermutePlan:
 
     Stage arrays are lane indices for `take_along_axis(axis=1)` plus the
     column-stage row-routing expressed as a per-column permutation, itself
-    decomposed for the transpose trick (see `transpose_pallas`)."""
+    decomposed for the transpose trick (see `static_permute`)."""
 
     r1: np.ndarray  # [R,128] lane gather for stage 1
     col_perm: np.ndarray  # [R,128]: row index each (row,lane) pulls from

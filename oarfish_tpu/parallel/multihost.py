@@ -1,11 +1,12 @@
-"""Multi-host pod-slice execution: distributed init + global CSR assembly.
+"""Multi-host execution: distributed init + global CSR assembly.
 
 The reference is strictly single-process (SURVEY §2: no collectives of any
 kind); this module is new design per the north star: each host packs its
 own shard of the reads (its BAM chunk), the shards are assembled into one
 global device array over a `data` mesh spanning all hosts' devices, and
 `sharded_em` runs with one `psum` of partial transcript counts per EM
-iteration — riding ICI within a slice and DCN across hosts.
+iteration — over the devices' interconnect within a host and the
+network across hosts.
 
 On a single host this degrades to the tested N-device path; the global
 assembly (`make_array_from_single_device_arrays`) is identical in both

@@ -1,16 +1,16 @@
-"""Data-parallel EM over a TPU device mesh.
+"""Data-parallel EM over a device mesh.
 
 The reference is single-process shared-memory (SURVEY §2: no collectives of
 any kind); distribution is new, first-class design here. Reads (CSR rows)
 are sharded across a 1-D `data` mesh axis; every EM iteration each device
 computes partial per-transcript counts from its read shard and the shards
-are merged with one `psum` over ICI — the convergence decision is then
-replicated. The entire while-loop runs inside a single `shard_map`, so XLA
+are merged with one `psum` over the interconnect — the convergence
+decision is then replicated. The entire while-loop runs inside a single `shard_map`, so XLA
 sees one program with one collective per iteration.
 
 Bootstrap replicates ride the same kernel: a [B, R] multiplicity batch is
 sharded on its read axis and vmapped inside the shard_map (replicates are
-chip-local; only the T-sized partial counts cross the interconnect).
+device-local; only the T-sized partial counts cross the interconnect).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class ShardedCsr:
         self.num_shards = D
         self.num_reads = R
         # split reads so each shard holds a contiguous range with roughly
-        # equal alignments (balanced HBM + compute per chip)
+        # equal alignments (balanced memory + compute per device)
         targets = [(A * (d + 1)) // D for d in range(D)]
         cuts = np.searchsorted(boundaries[1:], targets, side="left") + 1
         cuts = np.concatenate([[0], np.minimum(cuts, R)])

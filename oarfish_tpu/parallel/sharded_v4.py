@@ -1,9 +1,9 @@
-"""Read-sharded data-parallel **v4** EM over a TPU device mesh.
+"""Read-sharded data-parallel **v4** EM over a device mesh.
 
 `parallel/sharded_em.py` distributes the naive segment-sum m-step; this
 module distributes the flagship dual-bucketed static-routed iteration
-(`ops/em_v4.py`) instead, so each chip runs at routed-kernel speed and
-the only cross-chip traffic is the per-iteration `psum` of the T-sized
+(`ops/em_v4.py`) instead, so each device runs the routed iteration and
+the only cross-device traffic is the per-iteration `psum` of the T-sized
 partial transcript counts (the reference is single-process shared-memory
 — SURVEY §2: no collectives of any kind; distribution is new design
 here).
@@ -20,7 +20,7 @@ inert through every row sum and route.
 
 Per-shard routing arrays travel as `shard_map` data (leading mesh axis),
 so each device holds only its own shard's plans: total routing metadata
-across the mesh stays ~equal to the single-chip build.
+across the mesh stays ~equal to the single-device build.
 """
 
 from __future__ import annotations
@@ -207,9 +207,6 @@ def make_sharded_v4_runner(mesh: Mesh, max_iter: int, min_iters: int = 50,
         mesh=mesh,
         in_specs=(P("data"), P(), P(), P("data")),
         out_specs=(P(), P()),
-        # pallas_call does not carry varying-mesh-axis metadata; the
-        # routed kernels are shard-local by construction
-        check_vma=False,
     )
     def run(data_shard, init, conv, mult_shard):
         data_local = jax.tree_util.tree_map(lambda x: x[0], data_shard)
@@ -271,7 +268,6 @@ def make_sharded_v4_batch_runner(
         mesh=mesh,
         in_specs=(P("data"), P(), P(), P("data")),
         out_specs=(P(), P()),
-        check_vma=False,
     )
     def run(data_shard, init, conv, mult_shard):
         data_local = jax.tree_util.tree_map(lambda x: x[0], data_shard)

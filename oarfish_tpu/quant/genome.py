@@ -1,6 +1,6 @@
 """Genome-alignment projection mode (`--genome-alignments --annotation`).
 
-TPU-era equivalent of `run_genome_alignments` (`main.rs:182-235`) +
+Equivalent of `run_genome_alignments` (`main.rs:182-235`) +
 `quantify_genome_alignments_from_bam` (`bulk.rs:268-323`) +
 `parse_genome_alignments` (`alignment_parser.rs:580-700`): a name-collated
 spliced genome BAM is streamed, each read's alignments are projected onto

@@ -1,6 +1,6 @@
 """Genome read-projection mode (`--reads --genome --annotation`).
 
-TPU-era equivalent of `run_genome_reads` (`main.rs:239-317`) +
+Equivalent of `run_genome_reads` (`main.rs:239-317`) +
 `quantify_genome_raw_reads` (`bulk.rs:337-694`): raw reads are
 spliced-aligned to the genome with the native mapper, the chained anchor
 blocks are projected onto the annotation's transcripts, filtered

@@ -1,7 +1,7 @@
 """Raw-read mode: in-process mapping of FASTA/FASTQ/uBAM reads against a
 transcriptome index, then the standard quantification tail.
 
-TPU-era equivalent of `quantify_bulk_alignments_raw_reads`
+Equivalent of `quantify_bulk_alignments_raw_reads`
 (`bulk.rs:734-1048`) + the aligner plumbing of `util/aligner.rs`: the
 reference's producer/mapper/consumer thread pipeline becomes chunked
 batch mapping through the C++ mapper (which threads internally), with the

@@ -163,25 +163,18 @@ def write_output(
 
 
 def write_infrep_file(output: Path, breps: np.ndarray) -> None:
-    """`P.infreps.pq`: parquet v2, zstd, one `bootstrap.{i}` Float64 column
-    per replicate (`write_function.rs:199-209`, `parquet_utils.rs:15-44`)."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
+    """`P.infreps.pq`: one nullable `bootstrap.{i}` Float64 column per
+    replicate, PLAIN-encoded data page v2 (`write_function.rs:199-209`,
+    `parquet_utils.rs:15-44`). The codec is GZIP where the reference
+    uses zstd (PARITY.md): the writer needs nothing beyond the stdlib."""
+    from ..utils.parquet import write_float64_table
 
     output = Path(output)
     _ensure_parent(output)
-    cols = {
-        f"bootstrap.{i}": pa.array(np.asarray(breps[i], dtype=np.float64))
-        for i in range(len(breps))
-    }
-    table = pa.table(cols)
-    pq.write_table(
-        table,
+    write_float64_table(
         _with_extension(output, ".infreps.pq"),
-        compression="zstd",
-        use_dictionary=False,
-        version="2.6",
-        data_page_version="2.0",
+        {f"bootstrap.{i}": np.asarray(b, dtype=np.float64)
+         for i, b in enumerate(breps)},
     )
 
 

@@ -1,6 +1,6 @@
 """Reference provenance digests (GA4GH refget sequence-collection spec).
 
-TPU-era equivalent of the reference's `seqcol_rs` usage
+Equivalent of the reference's `seqcol_rs` usage
 (`digest_utils.rs:179-202`, `:11-25`): Level1 seqcol digests over names,
 lengths, and (when sequences are available) sequence content, recorded into
 `meta_info.json` for provenance.

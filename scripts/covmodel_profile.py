@@ -18,8 +18,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-
 from e2e_bench import ensure_fixture  # noqa: E402
 
 
@@ -28,7 +26,11 @@ def main():
     ap.add_argument("--reads", type=int, default=2_000_000)
     ap.add_argument("--txps", type=int, default=200_000)
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--platform", default=None,
+                    help="pin the jax platform (e.g. cpu)")
     args = ap.parse_args()
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
 
     bam, info, gen_s = ensure_fixture(args.reads, args.txps, seed=0)
     print(f"fixture {bam} gen {gen_s:.1f}s {info}")

@@ -31,7 +31,6 @@ Prints one JSON line. Usage:
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -135,8 +134,7 @@ def main():
         if cov:
             cmd.append("--model-coverage")
         r = subprocess.run(
-            cmd, cwd=REPO, capture_output=True, text=True, timeout=900,
-            env=dict(OARFISH_PLATFORM="cpu", **dict(os.environ)))
+            cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             sys.stderr.write(r.stderr[-3000:])
             raise SystemExit(1)

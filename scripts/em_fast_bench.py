@@ -1,4 +1,4 @@
-"""Time the scatter-free EM formulation on the TPU vs the baseline."""
+"""Time the scatter-free EM formulation on the default device vs the baseline."""
 
 import sys
 import time

@@ -66,7 +66,6 @@ def main():
         iso, _e1 = build_world(d, rng, args.genes)
         truth = simulate_reads(d, rng, iso, args.reads)
         env = dict(os.environ)
-        env["OARFISH_PLATFORM"] = "cpu"
         repo = Path(__file__).resolve().parent.parent
         env["PYTHONPATH"] = str(repo) + os.pathsep + env.get(
             "PYTHONPATH", ""

@@ -221,7 +221,6 @@ def main():
         gen_s = time.perf_counter() - t_gen
 
     env = dict(os.environ)
-    env["OARFISH_PLATFORM"] = "cpu"
     repo = Path(__file__).resolve().parent.parent
     env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
     rss0 = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss

@@ -15,12 +15,11 @@ quantify the SAME reads three ways —
 transcriptome-mode quant vectors, plus each vs truth.
 
 Usage: python scripts/genome_vs_txome_eval.py [--genes 5000 --reads 30000]
-Prints one JSON line. Host CPU + small EMs (OARFISH_PLATFORM=cpu).
+Prints one JSON line.
 """
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
@@ -67,8 +66,7 @@ def main():
                "-o", str(d / label), "--em-dtype", "float64", "--quiet",
                "--threads", str(args.threads), *extra]
         r = subprocess.run(
-            cmd, cwd=REPO, capture_output=True, text=True, timeout=3600,
-            env=dict(OARFISH_PLATFORM="cpu", **dict(os.environ)))
+            cmd, cwd=REPO, capture_output=True, text=True, timeout=3600)
         if r.returncode != 0:
             sys.stderr.write(r.stderr[-3000:])
             raise SystemExit(1)

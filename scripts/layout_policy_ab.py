@@ -21,11 +21,14 @@ def main():
     ap.add_argument("--reads", type=int, default=5_000_000)
     ap.add_argument("--txps", type=int, default=200_000)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--platform", default=None,
+                    help="pin the jax platform (e.g. cpu)")
     args = ap.parse_args()
 
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
     import numpy as np
 
     from e2e_bench import ensure_fixture

@@ -1,24 +1,26 @@
-"""Multi-host scaling-efficiency evidence (BASELINE: >=0.8 @ 4 hosts).
+"""Multi-host scaling-efficiency model (BASELINE: >=0.8 @ 4 hosts).
 
-Real multi-host TPU hardware is unavailable in this environment, so the
-case is assembled from three measurable pieces (PERF_NOTES "multi-host
-scaling model"):
+No multi-host hardware is available to this script, so the case is
+assembled from three pieces:
 
   (a) EXACT per-iteration communication volume. The sharded EMs'
       only collective is one psum of the (T)-sized f32 partial-count
       vector per iteration (3 per SQUAREM cycle). No alignment-space
       data ever crosses a device boundary.
-  (b) A measured compute-vs-collective split on the virtual 8-device
-      CPU mesh (shape of the program, not TPU-absolute time): the same
-      shard_map program with the psum replaced by the local partial,
-      timed against the real one.
-  (c) A bandwidth/latency model of the DCN all-reduce combined with the
-      measured single-chip v4 iteration time, evaluated for strong
+  (b) A measured compute-vs-collective split on a virtual 8-device
+      mesh (shape of the program, not device time): the same shard_map
+      program with the psum replaced by the local partial, timed
+      against the real one. Run with --platform cpu for the virtual
+      CPU mesh.
+  (c) A bandwidth/latency model of the inter-host network all-reduce
+      combined with a MEASURED single-device EM iteration time and
+      host-phase time (given as arguments, e.g. from bench.py and
+      scripts/e2e_bench.py on the target host), evaluated for strong
       scaling (fixed total reads) and weak scaling (fixed per-host
       reads), plus the host-phase sharding of distributed ingest.
 
-Usage: python scripts/multihost_eff.py [--quick]
-Environment: CPU (forces jax cpu platform + 8 virtual devices).
+Usage: python scripts/multihost_eff.py --ms-per-iter MS
+           --host-phases-s S [--platform cpu] [--quick]
 """
 
 import argparse
@@ -36,9 +38,6 @@ if "xla_force_host_platform_device_count" not in os.environ["XLA_FLAGS"]:
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
@@ -113,115 +112,100 @@ def measure_split(R, T, iters=30):
     return out, A, D
 
 
-def model_tables(T, ms_per_iter_1chip, A_ref, A_total, host_phases_s):
-    """All-reduce model + measured compute scaling, for BOTH transports:
-
-      - ICI: H hosts inside ONE pod slice (the normal TPU deployment —
-        a v5e-16/v5e-32 slice spans 4/8 hosts on the 2D torus; pod
-        collectives ride ICI, NOT DCN). ~50 GB/s effective, ~5 us/hop.
-      - DCN: multi-slice / cross-datacenter-network (the conservative
-        bound, and what gloo-on-CPU emulates). 100 Gbps = 12.5 GB/s,
-        ~25 us/hop.
-
-    Per-chip compute: measured ms/iter at A_ref scaled by shard size
-    with a 0.45 ms kernel floor (grid-launch + fixed stage overheads,
-    from the stage-split measurements at small A). Ring all-reduce:
-    bytes_on_wire = 2*(H-1)/H * payload; latency 2*(H-1) * hop."""
+def model_tables(T, ms_per_iter_1dev, A_ref, A_total, host_phases_s,
+                 devs_per_host=4, net_bw=12.5e9, net_hop_s=25e-6):
+    """All-reduce model + measured compute scaling over an inter-host
+    network (default 100 Gbps = 12.5 GB/s, 25 us per hop; the devices
+    inside one host are assumed to reduce far faster than that).
+    Per-device compute: the measured ms/iter at A_ref scaled by shard
+    size. Ring all-reduce: bytes_on_wire = 2*(H-1)/H * payload;
+    latency 2*(H-1) * hop."""
     payload = 4.0 * T
-    transports = {"ici": (50e9, 5e-6), "dcn": (12.5e9, 25e-6)}
-    floor_ms = 0.45
 
-    def t_comm_ms(H, tr):
+    def t_comm_ms(H):
         if H == 1:
             return 0.0
-        bw, lat = transports[tr]
-        return 1000 * (2 * (H - 1) / H * payload / bw + 2 * (H - 1) * lat)
+        return 1000 * (2 * (H - 1) / H * payload / net_bw
+                       + 2 * (H - 1) * net_hop_s)
 
-    def t_comp_ms(A_per_chip):
-        return max(floor_ms, ms_per_iter_1chip * A_per_chip / A_ref)
+    def t_comp_ms(A_per_dev):
+        return ms_per_iter_1dev * A_per_dev / A_ref
 
     rows = {"strong": [], "weak": [], "e2e": []}
-    t1_strong = t_comp_ms(A_total / 4)  # 1 host = 4 chips
+    t1_strong = t_comp_ms(A_total / devs_per_host)
     for H in (1, 2, 4, 8):
-        tc = t_comp_ms(A_total / (4 * H))
-        tt = {tr: tc + t_comm_ms(H, tr) for tr in transports}
+        tc = t_comp_ms(A_total / (devs_per_host * H))
+        tt = tc + t_comm_ms(H)
         rows["strong"].append(
-            (H, round(tc, 3),
-             round(t_comm_ms(H, "ici"), 3), round(t_comm_ms(H, "dcn"), 3),
-             round(t1_strong / (H * tt["ici"]), 3),
-             round(t1_strong / (H * tt["dcn"]), 3))
+            (H, round(tc, 3), round(t_comm_ms(H), 3),
+             round(t1_strong / (H * tt), 3))
         )
-        # weak: per-CHIP alignment count fixed at the bench shape A_ref
-        # (the workload one actually adds hosts for)
+        # weak: per-device alignment count fixed at A_ref
         tcw = t_comp_ms(A_ref)
         rows["weak"].append(
-            (H, round(tcw, 3),
-             round(t_comm_ms(H, "ici"), 3), round(t_comm_ms(H, "dcn"), 3),
-             round(tcw / (tcw + t_comm_ms(H, "ici")), 3),
-             round(tcw / (tcw + t_comm_ms(H, "dcn")), 3))
+            (H, round(tcw, 3), round(t_comm_ms(H), 3),
+             round(tcw / (tcw + t_comm_ms(H)), 3))
         )
-        # e2e strong: host phases shard with distributed ingest
-        # (pack/H; plan build cached/amortized), EM = iters * per-iter
+        # e2e strong: host phases shard with distributed ingest,
+        # EM = iters * per-iter
         iters = 150
-        e2e = {
-            tr: host_phases_s / H + iters * tt[tr] / 1000 + 2.0
-            for tr in transports
-        }
-        e2e1 = host_phases_s + iters * t1_strong / 1000 + 2.0
-        rows["e2e"].append(
-            (H, round(e2e["ici"], 2), round(e2e1 / (H * e2e["ici"]), 3),
-             round(e2e["dcn"], 2), round(e2e1 / (H * e2e["dcn"]), 3))
-        )
+        e2e = host_phases_s / H + iters * tt / 1000
+        e2e1 = host_phases_s + iters * t1_strong / 1000
+        rows["e2e"].append((H, round(e2e, 2), round(e2e1 / (H * e2e), 3)))
     return rows
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--platform", default=None,
+                    help="jax platform for the mesh split (cpu: the "
+                         "virtual 8-device mesh)")
+    ap.add_argument("--ms-per-iter", type=float, required=True,
+                    help="measured single-device EM ms/iter at A=6M")
+    ap.add_argument("--host-phases-s", type=float, required=True,
+                    help="measured host-phase seconds of one A=15M run")
     args = ap.parse_args()
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
     R = 100_000 if args.quick else 500_000
     T = 20_000 if args.quick else 200_000
 
     split, A, D = measure_split(R, T)
     psum_ms = 1000 * max(split["full"] - split["no_psum"], 0.0)
     print(
-        f"virtual mesh ({D} CPU devices, R={R}, A={A}, T={T}): "
-        f"full {1000*split['full']:.2f} ms/iter, no-psum "
+        f"mesh ({D} {jax.default_backend()} devices, R={R}, A={A}, "
+        f"T={T}): full {1000*split['full']:.2f} ms/iter, no-psum "
         f"{1000*split['no_psum']:.2f} ms/iter -> collective share "
         f"{psum_ms:.2f} ms/iter ({100*psum_ms/(1000*split['full']):.0f}%)"
     )
     print(f"psum payload: {4.0*(T+1)/1e6:.2f} MB f32 per iteration "
           f"(1 psum/iter; 3/cycle under SQUAREM)")
 
-    # measured single-chip v4: 1.9 ms/iter at A=6M (BENCH r2/r3);
-    # config-3 totals from the 5M e2e run
     rows = model_tables(
-        T=250_000, ms_per_iter_1chip=1.9, A_ref=6_000_000,
-        A_total=15_000_000, host_phases_s=23.4,
+        T=250_000, ms_per_iter_1dev=args.ms_per_iter, A_ref=6_000_000,
+        A_total=15_000_000, host_phases_s=args.host_phases_s,
     )
-    print("\nall-reduce model @ config 3 (A=15M, T=250k, 4 chips/host, "
-          "ring all-reduce, 0.45 ms kernel floor);")
-    print("ICI = hosts within one pod slice (normal deployment), "
-          "DCN = multi-slice bound:")
+    print("\nall-reduce model @ config 3 (A=15M, T=250k, 4 devices/host, "
+          "ring all-reduce over the inter-host network):")
     print("strong scaling (fixed 15M alignments):")
-    print("  H  comp_ms  ici_ms  dcn_ms  eff_ici  eff_dcn")
+    print("  H  comp_ms  net_ms  eff")
     for r in rows["strong"]:
-        print("  {:<2} {:>7} {:>7} {:>7} {:>8} {:>8}".format(*r))
-    print("weak scaling (bench shape A=6M per chip):")
-    print("  H  comp_ms  ici_ms  dcn_ms  eff_ici  eff_dcn")
+        print("  {:<2} {:>7} {:>7} {:>6}".format(*r))
+    print("weak scaling (A=6M per device):")
+    print("  H  comp_ms  net_ms  eff")
     for r in rows["weak"]:
-        print("  {:<2} {:>7} {:>7} {:>7} {:>8} {:>8}".format(*r))
+        print("  {:<2} {:>7} {:>7} {:>6}".format(*r))
     print("e2e strong scaling (distributed ingest shards the host "
           "phases; 150 EM iters):")
-    print("  H  e2e_ici_s  eff_ici  e2e_dcn_s  eff_dcn")
+    print("  H  e2e_s  eff")
     for r in rows["e2e"]:
-        print("  {:<2} {:>9} {:>8} {:>9} {:>8}".format(*r))
+        print("  {:<2} {:>6} {:>6}".format(*r))
     print("\nbootstrap replicates / single-cell batches: no per-"
           "iteration collective (replicate/cell axis sharded) -> "
           "efficiency ~1.0 by construction")
     print(json.dumps({
-        "virtual_mesh_split": {k: round(1000 * v, 3)
-                               for k, v in split.items()},
+        "mesh_split_ms": {k: round(1000 * v, 3) for k, v in split.items()},
         "psum_payload_mb": round(4.0 * (T + 1) / 1e6, 3),
     }))
 

@@ -1,4 +1,4 @@
-"""Per-op microbenchmark on the TPU: which sparse primitive is slow?
+"""Per-op microbenchmark on the default device: which sparse primitive is slow?
 
 Times individual ops of the EM iteration (random gather, monotonic
 gather/repeat, scatter-add segment-sum, cumsum, hierarchical segmented

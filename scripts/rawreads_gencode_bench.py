@@ -102,7 +102,6 @@ def main():
         gen_s = time.perf_counter() - t_gen
 
     env = dict(os.environ)
-    env["OARFISH_PLATFORM"] = "cpu"
     repo = Path(__file__).resolve().parent.parent
     env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
     ref_args = (["--index", args.index] if args.index

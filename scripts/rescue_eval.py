@@ -130,7 +130,6 @@ def run_cli(d: Path, out, extra):
     import os
 
     env = dict(os.environ)
-    env["OARFISH_PLATFORM"] = "cpu"
     repo = Path(__file__).resolve().parent.parent
     env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(

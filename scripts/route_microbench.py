@@ -1,5 +1,5 @@
 """Split GlobalRoute cost into expand-kernel / exchange-glue / reduce-kernel
-at the bench A=6M shapes, on the attached TPU.
+at the bench A=6M shapes, on the default device.
 
 Every loop body must depend on the carried value (loop-invariant code is
 hoisted, CLAUDE.md) — each phase folds a few output elements back into

@@ -3,7 +3,7 @@
 Generates a CB-collated synthetic BAM (vectorized record assembly — the
 bulk e2e generator plus a CB:Z: tag, reads emitted cell-contiguous),
 runs the REAL single-cell driver end-to-end (decode -> per-barcode CSR
--> pow2-bucketed dense MXU EMs -> .count.mtx/.barcodes/.features
+-> pow2-bucketed batched cell EMs -> .count.mtx/.barcodes/.features
 writers), and reports wall, cells/s, phase attribution, and peak RSS.
 The reference runs this mode as a worker-thread pool of scalar EMs
 (`single_cell.rs:91-193`); its README claims no number here, so this is

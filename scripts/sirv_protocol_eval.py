@@ -100,8 +100,6 @@ def main():
             cmd.append("--model-coverage")
         r = subprocess.run(
             cmd, cwd=REPO, capture_output=True, text=True, timeout=900,
-            env=dict(OARFISH_PLATFORM="cpu", **dict(
-                __import__("os").environ)),
         )
         if r.returncode != 0:
             sys.stderr.write(r.stderr[-3000:])

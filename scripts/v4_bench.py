@@ -1,4 +1,4 @@
-"""Delta-timed v4 EM iteration on the attached TPU at the bench shape."""
+"""Delta-timed v4 EM iteration on the default device at the bench shape."""
 
 import sys
 import time

@@ -1,4 +1,4 @@
-"""Per-stage delta-timing of the v4 EM iteration on the attached TPU."""
+"""Per-stage delta-timing of the v4 EM iteration on the default device."""
 
 import sys
 import time

@@ -195,17 +195,26 @@ def test_cli_mode_validation(sim, capsys):
         main(["--reads", "r.fq", "-o", "x"])  # no reference/seq-tech
 
 
-def test_cli_em_impl_v4_cpu_fallback(sim):
-    """--em-impl v4 on the CPU test backend must downgrade cleanly to
-    'fast' and still produce oracle-exact output."""
+def test_cli_em_impl_v4_cpu_fallback(sim, caplog):
+    """--em-impl v4 runs its plain-JAX routing stages on the CPU test
+    backend (no downgrade) and matches the segsum run to f32 tolerances
+    (v4 iterates in f32)."""
+    import logging
+
     d, p, names, lengths, truth = sim
-    out = d / "v4fb" / "q"
-    rc = main(["--alignments", str(p), "-o", str(out), "--em-dtype",
-               "float64", "--em-impl", "v4", "--quiet"])
-    assert rc == 0
-    qn, ql, qc = read_quant(str(out) + ".quant")
-    want = oracle_counts(p, lengths)
-    np.testing.assert_allclose(qc, want, rtol=1e-9, atol=1e-9)
+    out = {}
+    for impl in ("segsum", "v4"):
+        out[impl] = d / f"impl_{impl}" / "q"
+        with caplog.at_level(logging.INFO, logger="oarfish_tpu"):
+            rc = main(["--alignments", str(p), "-o", str(out[impl]),
+                       "--em-dtype", "float64", "--em-impl", impl])
+        assert rc == 0
+    assert "v4 routing built" in caplog.text
+    assert "routing unavailable" not in caplog.text
+    _, _, seg = read_quant(str(out["segsum"]) + ".quant")
+    _, _, v4 = read_quant(str(out["v4"]) + ".quant")
+    assert abs(v4.sum() - seg.sum()) / seg.sum() < 1e-5
+    assert np.abs(v4 - seg).sum() / seg.sum() < 2e-3
 
 
 def test_cli_em_accel_squarem(sim):

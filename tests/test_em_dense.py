@@ -1,4 +1,4 @@
-"""Dense one-hot MXU EM (`ops/em_dense.py`) vs the sparse segsum EM.
+"""Dense one-hot matmul EM (`ops/em_dense.py`) vs the sparse segsum EM.
 
 The dense formulation must reproduce the segsum path's per-cell EM
 (`run_em` protocol) exactly in f64 (same fixed point, same iteration

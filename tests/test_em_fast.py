@@ -53,39 +53,3 @@ def test_fast_em_multiplicity():
                      multiplicity=jnp.asarray(mult))
     np.testing.assert_allclose(np.asarray(counts), np.asarray(want),
                                rtol=1e-9, atol=1e-9)
-
-
-def test_v3_build_falls_back_or_raises_small_scale():
-    """v3 routing is a large-scale design: at toy sizes the quota layout
-    degenerates and the driver must fall back cleanly."""
-    import pytest
-
-    from oarfish_tpu.ops.em_v3 import EmV3Data
-
-    rng = np.random.default_rng(0)
-    txp_id, w, boundaries, read_id, R, T = random_csr(rng, R=300, T=40)
-    with pytest.raises(ValueError, match="degenerate"):
-        EmV3Data.build(txp_id, w, boundaries, T)
-
-
-def test_fast_em_pallas_gather_matches_oracle():
-    """`use_pallas_gather=True` path (interpret mode on CPU): the sorted
-    gather runs through the in-kernel one-hot reconstruction
-    (gather_pallas.SortedGatherPlan.base); internal one-hot matmuls are
-    f32, so tolerance is ~1e-4 even for f64 tables."""
-    rng = np.random.default_rng(11)
-    txp_id, w, boundaries, read_id, R, T = random_csr(
-        rng, R=4000, T=600, max_k=5
-    )
-    data, _ = FastEmData.build(
-        txp_id, w, boundaries, T, dtype=jnp.float64, use_pallas_gather=True
-    )
-    assert data.use_pallas_gather, "pallas plan unexpectedly fell back"
-    init = jnp.full(T, R / T, dtype=jnp.float64)
-    counts, _ = run_em_fast(data, init, 300, 5e-3)
-    want = do_em_oracle(
-        txp_id, w, boundaries, T, max_iter=300, convergence_thresh=5e-3
-    )
-    counts = np.asarray(counts)
-    np.testing.assert_allclose(counts.sum(), want.sum(), rtol=1e-6)
-    np.testing.assert_allclose(counts, want, atol=5e-4 * R / T, rtol=5e-3)

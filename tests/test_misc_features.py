@@ -166,26 +166,18 @@ def test_lazy_digest_resolution():
         resolve_lazy_digests({"d": LazyDigest(boom)})
 
 
-def test_choose_auto_impl_policy(monkeypatch):
-    """auto picks v4 only on a device backend with enough alignments
-    and enough expected iteration work to amortize the route build."""
-    from oarfish_tpu.quant.bulk import V4_MIN_ALNS, choose_auto_impl
+def test_choose_auto_impl_policy(tmp_path, caplog):
+    """`--em-impl auto` is the segment-sum EM on every backend (chosen
+    from end-to-end GPU times; fast and v4 lost there), with or without
+    bootstraps."""
+    import logging
 
-    monkeypatch.delenv("OARFISH_AUTO_V4", raising=False)
-    # CPU backend always uses the segment-sum EM
-    assert choose_auto_impl("cpu", 10 * V4_MIN_ALNS, 1000, 50) == "segsum"
-    # big plain run at the default 1000-iter cap: v4 (measured e2e on
-    # chip: 24.4s v4 vs 65.9s fast at R=2M — scripts/e2e_bench.py)
-    assert choose_auto_impl("tpu", 6_000_000, 1000, 0) == "v4"
-    # bootstraps reuse the tables across every replicate: v4
-    assert choose_auto_impl("tpu", 6_000_000, 1000, 50) == "v4"
-    assert choose_auto_impl("tpu", 2_000_000, 100, 30) == "v4"
-    # too few alignments for a viable route geometry: fast
-    assert choose_auto_impl("tpu", V4_MIN_ALNS - 1, 1000, 50) == "fast"
-    # a tightly capped plain run never amortizes the route build
-    assert choose_auto_impl("tpu", 6_000_000, 100, 0) == "fast"
-    # pins
-    monkeypatch.setenv("OARFISH_AUTO_V4", "1")
-    assert choose_auto_impl("tpu", 6_000_000, 100, 0) == "v4"
-    monkeypatch.setenv("OARFISH_AUTO_V4", "0")
-    assert choose_auto_impl("tpu", 6_000_000, 1000, 50) == "fast"
+    from oarfish_tpu.quant.bulk import AUTO_EM_IMPL
+
+    assert AUTO_EM_IMPL == "segsum"
+    p = tmp_path / "s.bam"
+    simulate_bam(p, num_reads=300, seed=5)
+    with caplog.at_level(logging.INFO, logger="oarfish_tpu"):
+        assert main(["--alignments", str(p), "-o", str(tmp_path / "q"),
+                     "--num-bootstraps", "2"]) == 0
+    assert "em-impl auto -> segsum" in caplog.text

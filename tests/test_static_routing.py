@@ -1,10 +1,9 @@
-"""Differential tests for the v3 static-routing building blocks.
+"""Differential tests for the static-routing building blocks.
 
-These run the REAL device code paths on CPU (Pallas interpret mode, see
-`gather_pallas._interpret`): the tile permute network, the global
-permute, the sorted MXU gather, and the fully-routed EM v3 m-step — each
-against either the plain permutation/gather it implements or the NumPy
-EM oracle.
+These run the same plain-JAX code on CPU that runs on the device: the
+tile permute network, the global gather routes, and the fully-routed EM
+v4 m-step — each against either the plain permutation/gather it
+implements or the NumPy EM oracle.
 """
 
 import jax
@@ -13,13 +12,11 @@ import numpy as np
 import pytest
 
 from oarfish_tpu.constants import EM_DENOM_THRESH
-from oarfish_tpu.ops.gather_pallas import LANES, SortedGatherPlan, sorted_gather
 from oarfish_tpu.ops.static_permute import (
     CH,
+    LANES,
     BatchTilePermute,
     DeviceTilePlan,
-    GlobalPermute,
-    balanced_pad_routing,
 )
 from test_em import random_csr
 
@@ -45,93 +42,6 @@ def test_batch_tile_permute_device():
          for i, p in enumerate(perms)]
     )
     np.testing.assert_array_equal(got, want)
-
-
-def test_global_permute_device():
-    rng = np.random.default_rng(4)
-    n = 48 * CH
-    perm = rng.permutation(n)
-    gp = GlobalPermute(perm, n)
-    x = rng.normal(size=n).astype(np.float32)
-    got = np.asarray(gp.plan(jnp.asarray(x)))
-    np.testing.assert_array_equal(got, x[perm])
-
-
-def test_balanced_pad_routing_bijection_and_flow():
-    rng = np.random.default_rng(5)
-    n = 32 * CH
-    # data mapping over ~70% of slots, with a concentrated tail
-    n_data = int(n * 0.7)
-    out_idx = np.sort(rng.choice(n, size=n_data, replace=False))
-    in_idx = rng.permutation(n)[:n_data]
-    perm = balanced_pad_routing(out_idx, in_idx, n)
-    assert len(np.unique(perm)) == n
-    np.testing.assert_array_equal(perm[out_idx], in_idx)
-    n_ch = n // CH
-    fl = np.zeros((n_ch, n_ch), np.int64)
-    np.add.at(fl, (perm // CH, np.arange(n) // CH), 1)
-    dfl = np.zeros((n_ch, n_ch), np.int64)
-    np.add.at(dfl, (in_idx // CH, out_idx // CH), 1)
-    # the pad routing must not blow up the data flows' maximum
-    assert fl.max() <= dfl.max() + int(np.ceil((n - n_data) / n_ch)) + 8
-
-
-def test_sorted_gather_device():
-    rng = np.random.default_rng(6)
-    T = 3000
-    idx = np.sort(rng.integers(0, T, size=40_000))
-    plan = SortedGatherPlan.build(idx, T)
-    table = rng.normal(size=T).astype(np.float32)
-    out = np.asarray(sorted_gather(jnp.asarray(table), plan))
-    mask = plan.src_pos >= 0
-    np.testing.assert_array_equal(out[mask], table[idx][plan.src_pos[mask]])
-
-
-def _v3_numpy_m_step(dbg, bucket_shapes, bucket_starts, n_slots, prev, T):
-    """Simulate the routed m-step in NumPy from the build's debug dict."""
-    src_pos = dbg["src_pos"]
-    mask = src_pos >= 0
-    val = np.zeros(dbg["NPAD"])
-    val[mask] = prev[dbg["txp_sorted"][src_pos[mask]]]
-    contrib = val * dbg["w_csc"]
-    slots = contrib[dbg["perm1"]][:n_slots]
-    scale_slots = np.zeros(n_slots)
-    for (rows, K), start in zip(bucket_shapes, bucket_starts):
-        blk = slots[start : start + rows * K].reshape(rows, K)
-        denom = blk.sum(axis=1)
-        s = np.where(denom > EM_DENOM_THRESH, 1.0 / np.where(denom > 0, denom, 1.0), 0.0)
-        scale_slots[start : start + rows * K] = np.repeat(s, K)
-    scale_ext = np.zeros(dbg["NPAD"])
-    scale_ext[:n_slots] = scale_slots
-    scale_csc = scale_ext[dbg["perm2"]]
-    inc = contrib * scale_csc
-    cs = np.concatenate([[0.0], np.cumsum(inc)])
-    o = dbg["offsets"]
-    return cs[o[1:]] - cs[o[:-1]]
-
-
-def test_v3_routing_simulation_vs_oracle():
-    """Full v3 layout/routing invariants at a non-degenerate scale,
-    simulated in NumPy f64: one m-step must equal the direct EM update."""
-    from oarfish_tpu.ops.em_v3 import EmV3Data
-
-    rng = np.random.default_rng(7)
-    txp_id, w, boundaries, read_id, R, T = random_csr(
-        rng, R=400_000, T=20_000, max_k=6
-    )
-    data, order, dbg = EmV3Data.build(txp_id, w, boundaries, T, debug=True)
-    prev = rng.uniform(0.5, 2.0, size=T)
-    got = _v3_numpy_m_step(
-        dbg, data.bucket_shapes, data.bucket_starts, data.n_slots, prev, T
-    )
-    # direct reference
-    denom = np.zeros(R)
-    pv = prev[txp_id] * w
-    np.add.at(denom, read_id, pv)
-    scale = np.where(denom > EM_DENOM_THRESH, 1.0 / np.where(denom > 0, denom, 1.0), 0.0)
-    want = np.zeros(T)
-    np.add.at(want, txp_id, pv * scale[read_id])
-    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
 
 
 def _v4_numpy_m_step(dbg, data, prev):
@@ -209,7 +119,7 @@ def test_v4_routing_simulation_vs_oracle():
 
 
 def test_v4_device_em_vs_oracle():
-    """The jitted v4 EM (Pallas interpret path on CPU) against the NumPy
+    """The jitted v4 EM against the NumPy
     oracle at a scale where the routing builds."""
     import jax.numpy as jnp
 
@@ -234,7 +144,7 @@ def test_v4_device_em_vs_oracle():
 
 def test_global_route_device():
     """GlobalRoute (rectangular gather network): out[out_idx] = x[in_idx]
-    with zeros at every uncovered output, on the real kernel path."""
+    with zeros at every uncovered output, on the device code path."""
     from oarfish_tpu.ops.static_permute import GlobalRoute
 
     rng = np.random.default_rng(13)
@@ -325,8 +235,8 @@ def test_global_route_pure_transpose_invariant(n_ch):
 
 
 def test_v4_fused_middle_matches_unfused(monkeypatch):
-    """The fused middle kernel (route-A reduce + denominator segment
-    sums + scaling + route-B expand in one pallas program) must agree
+    """The fused middle stage (route-A reduce + denominator segment
+    sums + scaling + route-B expand in one per-chunk function) must agree
     with the unfused HBM-round-trip path, with and without replicate
     multiplicities."""
     import jax.numpy as jnp
@@ -389,7 +299,7 @@ def test_v4_strided_exchange_matches_transpose(monkeypatch):
 def test_global_route_rect_device():
     """Rectangular GlobalRoute (n_pad_out != n_pad): out[out_idx] =
     x[in_idx] with a dst space larger than the src space, forced
-    geometry, on the real kernel path."""
+    geometry, on the device code path."""
     from oarfish_tpu.ops.static_permute import GlobalRoute, route_maxflow
 
     rng = np.random.default_rng(15)
@@ -568,7 +478,7 @@ def test_load_fresh_so_bypasses_dlopen_path_dedup(tmp_path):
 
 
 def test_v4_inkernel_batch_matches_singles(monkeypatch):
-    """`_m_step_v4_batch` (replicate axis inside the pallas programs,
+    """`_m_step_v4_batch` (replicate axis inside the route stages,
     tables read once per program; opt-in via OARFISH_V4_BATCH_KERNELS)
     must be BIT-exact vs per-replicate `_m_step_v4` calls, including
     the sub-batch split (B=6 -> 4+2) and both with and without

@@ -8,6 +8,7 @@ exercise the values a tiny SIRV run happens to produce).
 """
 
 import numpy as np
+import pytest
 
 from oarfish_tpu.quant.writers import (
     get_aux_counts,
@@ -145,3 +146,27 @@ def test_write_single_cell_mtx_vectorized(tmp_path):
     assert (tmp_path / "sc0.count.mtx").read_bytes() == (
         b"%%MatrixMarket matrix coordinate real general\n0 2 0\n"
     )
+
+
+@pytest.mark.parametrize("n_reps,n_txps", [(1, 1), (3, 17), (20, 5000)])
+def test_infrep_parquet_reads_back_in_pyarrow(tmp_path, n_reps, n_txps):
+    """The stdlib Parquet writer: pyarrow reads the replicate columns
+    back with their names, nullable float64 type and exact values."""
+    pq = pytest.importorskip("pyarrow.parquet")
+    from oarfish_tpu.quant.writers import write_infrep_file
+
+    rng = np.random.default_rng(n_txps)
+    breps = rng.gamma(2.0, 50.0, size=(n_reps, n_txps))
+    breps[:, 0] = 0.0
+    write_infrep_file(tmp_path / "o", breps)
+    path = tmp_path / "o.infreps.pq"
+    t = pq.read_table(path)
+    assert t.column_names == [f"bootstrap.{i}" for i in range(n_reps)]
+    for i in range(n_reps):
+        field = t.schema.field(i)
+        assert str(field.type) == "double" and field.nullable
+        assert t.column(i).null_count == 0
+        np.testing.assert_array_equal(t.column(i).to_numpy(), breps[i])
+    meta = pq.ParquetFile(path).metadata
+    assert meta.num_rows == n_txps and meta.num_row_groups == 1
+    assert meta.row_group(0).column(0).compression == "GZIP"
